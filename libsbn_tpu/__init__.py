@@ -1,19 +1,19 @@
-"""libsbn_tpu: a TPU-native phylogenetic variational inference framework.
+"""libsbn_tpu: phylogenetic variational inference in JAX.
 
 A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of
 phylovi/libsbn (subsplit Bayes networks, variational Bayesian phylogenetic
-inference, generalized pruning), designed TPU-first:
+inference, generalized pruning):
 
   * tree topologies compile to dense index schedules; likelihoods and
     gradients run as batched, jitted Felsenstein pruning over device-resident
     partial likelihood vectors;
-  * thousands of trees evaluate per kernel launch via vmap/pjit instead of
-    the reference's one-thread-per-tree model;
-  * multi-chip scaling uses jax.sharding meshes with XLA collectives.
+  * thousands of trees evaluate per launch via vmap instead of the
+    reference's one-thread-per-tree model;
+  * multi-device scaling uses jax.sharding meshes with XLA collectives.
 
 Double precision is enabled at import because the parity targets of the
-reference demand 1e-6..1e-12 agreement; TPU benchmark paths explicitly cast
-to float32/bfloat16.
+reference demand 1e-6..1e-12 agreement; throughput paths pass float32
+explicitly.
 """
 
 import os as _os
@@ -22,35 +22,27 @@ from jax import config as _jax_config
 
 _jax_config.update("jax_enable_x64", True)
 
-# TPU MXU default is bf16-multiply for f32 matmuls; that loses ~1% of the
-# log-likelihood (96 LL units on DS1 — fails the pybeagle parity gate, see
-# docs/parity_map.md precision policy). Every einsum/dot in the likelihood,
-# gradient, GP, and VI paths therefore runs at full-f32 matmul precision by
-# default. Override with LIBSBN_TPU_MATMUL_PRECISION=default|high|highest.
-_jax_config.update(
-    "jax_default_matmul_precision",
-    _os.environ.get("LIBSBN_TPU_MATMUL_PRECISION", "highest"),
-)
+# A GPU may run float32 matrix products in TF32 (about three decimal
+# digits), which loses far more of the log-likelihood than the pybeagle
+# parity gate allows (docs/parity_map.md precision policy). Every
+# einsum/dot in the likelihood, gradient, GP and VI paths therefore runs
+# at full float32 precision.
+_jax_config.update("jax_default_matmul_precision", "highest")
 
-# Persistent XLA compilation cache: deep subsplit-DAG programs can take
-# minutes of compile on TPU; cache them across processes. Opt out with
-# LIBSBN_TPU_NO_CACHE=1 or redirect with LIBSBN_TPU_CACHE_DIR.
-if not _os.environ.get("LIBSBN_TPU_NO_CACHE"):
-    _cache_dir = _os.environ.get(
-        "LIBSBN_TPU_CACHE_DIR",
+# Persistent XLA compilation cache: deep subsplit-DAG programs take long to
+# compile cold. JAX_COMPILATION_CACHE_DIR, when set, is honoured by JAX
+# itself; otherwise the cache lives at a fixed path inside the checkout.
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax_config.update(
+        "jax_compilation_cache_dir",
         _os.path.join(
-            _os.environ.get("XDG_CACHE_HOME", _os.path.expanduser("~/.cache")),
-            "libsbn_tpu_xla",
+            _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+            ".jax_cache",
         ),
     )
-    try:
-        _jax_config.update("jax_compilation_cache_dir", _cache_dir)
-        # Only cache the expensive programs (deep GP DAGs, big training
-        # steps): caching every small CPU test program churns disk and
-        # XLA:CPU AOT reloads warn about machine-feature mismatches.
-        _jax_config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except Exception:  # pragma: no cover - older jax without the knobs
-        pass
+# Only cache the expensive programs (deep GP DAGs, big training steps):
+# caching every small test program churns disk.
+_jax_config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
 
 __version__ = "0.1.0"
 

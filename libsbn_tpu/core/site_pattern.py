@@ -5,7 +5,7 @@ become patterns with multiplicity weights; symbols A/C/G/T map to 0..3 and
 every ambiguity code maps to 4 (gap), which becomes a uniform tip partial.
 
 Unlike the reference (which keeps per-taxon symbol vectors and expands to
-partials on demand), we eagerly produce the dense arrays the TPU kernels
+partials on demand), we eagerly produce the dense arrays the device kernels
 want: an int8 (taxa, patterns) matrix, a float weights vector, and the
 (taxa, 4, patterns) tip-partial tensor.
 """

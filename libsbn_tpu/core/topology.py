@@ -1,7 +1,7 @@
 """Immutable tree topologies with the reference's id conventions.
 
 Reimplements the semantics of /root/reference/src/node.hpp (Node) for the
-host-side, compile-time layer of the TPU framework. The conventions that
+host-side, compile-time layer of the framework. The conventions that
 matter for numerical parity and for the SBN indexers:
 
   * Children of an internal node are sorted by their max leaf id at

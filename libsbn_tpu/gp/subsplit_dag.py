@@ -7,7 +7,7 @@ first, then PCSP blocks grouped by parent, then fake-subsplit edges appended
 (AddFakeSubsplitsToDAGEdgesAndParentToRange).
 
 Besides the combinatorial structure, this module lowers the DAG to the dense
-level schedules the TPU GP engine consumes (see gp/engine.py): edges grouped
+level schedules the GP engine consumes (see gp/engine.py): edges grouped
 by parent-level for the rootward pass and by child-level for the leafward
 pass, as int32 arrays.
 """
@@ -392,7 +392,7 @@ class SubsplitDAG:
             final.append(Topology.of_parent_id_vector(top.parent_id_vector()))
         return final
 
-    # -- dense level schedules (TPU lowering) ---------------------------------
+    # -- dense level schedules (device lowering) ------------------------------
     def level_schedules(self):
         """Rootward and leafward edge groupings by dependency level.
 

@@ -5,7 +5,7 @@ Mirrors the API surface of the reference's GenericSBNInstance
 trees, build the SBN support, train SA/EM, sample topologies, compute
 probabilities, and drive the phylogenetic likelihood engine.
 
-TPU-native differences: sbn_parameters is a numpy array lowered to device
+Differences from the reference: sbn_parameters is a numpy array lowered to device
 arrays at call sites; likelihood calls batch the whole tree collection into
 one jitted program (no thread_count: parallelism is vmap + device sharding).
 """
@@ -227,7 +227,7 @@ class GenericSBNInstance:
         accepted for API parity but ignored: batching replaces the executor
         pool and there is no BEAGLE (§2.9). use_tip_states selects the
         1-byte resident tip-code mode (bit-identical results; the default
-        here is tip partials, the TPU-measured production layout)."""
+        here is tip partials)."""
         self._check_trees_loaded()
         if self.alignment is None:
             raise RuntimeError("Please read a FASTA file first.")

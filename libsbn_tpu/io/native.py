@@ -1,9 +1,11 @@
 """ctypes bindings for the native host core (native/libsbn_native.cpp).
 
-The shared library is built with `make -C native` (g++, no dependencies).
-All entry points degrade gracefully: if the library is missing or a parse
-hits an unsupported construct, callers fall back to the pure-Python
-implementations in io/newick.py and ops/schedule.py.
+The shared library is built from source with `make -C native` (g++, no
+dependencies) on first use in each process; make rebuilds only when a
+source is newer than its library. All entry points degrade gracefully:
+if the library is missing or a parse hits an unsupported construct,
+callers fall back to the pure-Python implementations in io/newick.py and
+ops/schedule.py.
 """
 
 from __future__ import annotations
@@ -41,18 +43,21 @@ class _ParseResult(ctypes.Structure):
     ]
 
 
-def _try_build() -> bool:
-    makefile = os.path.join(_NATIVE_DIR, "Makefile")
-    if not os.path.exists(makefile):
+def build_native(target: str = "all", native_dir: str = _NATIVE_DIR) -> bool:
+    """Run ``make target`` in native_dir. The Makefile compiles each
+    library under a temporary name and renames it into place, so processes
+    building concurrently never load a half-written file. Returns True when
+    make succeeded."""
+    if not os.path.exists(os.path.join(native_dir, "Makefile")):
         return False
     try:
         subprocess.run(
-            ["make", "-C", _NATIVE_DIR],
-            check=True, capture_output=True, timeout=120,
+            ["make", "-C", native_dir, target],
+            check=True, capture_output=True, timeout=300,
         )
-        return os.path.exists(_SO_PATH)
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
+    return True
 
 
 def get_lib():
@@ -61,7 +66,8 @@ def get_lib():
     if _lib is not None or _load_attempted:
         return _lib
     _load_attempted = True
-    if not os.path.exists(_SO_PATH) and not _try_build():
+    build_native()
+    if not os.path.exists(_SO_PATH):
         return None
     try:
         lib = ctypes.CDLL(_SO_PATH)

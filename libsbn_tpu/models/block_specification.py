@@ -2,7 +2,7 @@
 
 API-parity port of /root/reference/src/block_specification.{hpp,cpp}: a map
 from block name to (start, size) into one flat parameter vector, with
-"entire"-prefixed keys spanning composed sub-models. In the TPU framework
+"entire"-prefixed keys spanning composed sub-models. In this framework
 parameters natively live in pytrees; this class exists for the reference's
 flat-vector interface (param matrices indexed from Python,
 generic_sbn_instance.hpp:225-228) and round-trips pytree <-> flat vector.

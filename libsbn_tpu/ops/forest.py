@@ -19,8 +19,8 @@ partials, and the whole collection collapses to a DAG of unique structures:
 
 On DS1.100_topologies this dedupes 2,500 internal combines to 292, 5,100
 upper partials to 2,424, and 5,100 edge contractions to 2,805. The deeper
-TPU win is structural: the per-tree kernels pay a ~52-step serial chain per
-tree (the measured latency bound, docs/performance.md), while the forest
+win is structural: the per-tree engines pay a ~52-step serial chain per
+tree, while the forest
 runs ONE chain of ~2×depth wide *levels*, each a batched gather + einsum —
 so the whole collection costs about as much serial latency as two trees.
 
@@ -419,6 +419,7 @@ def forest_log_likelihoods_and_gradients(
         ev = jnp.einsum("nkij,nkjp->nkip", Pmat[fs.down_bl[a:b]], prod)
         Ed = jax.lax.dynamic_update_slice(Ed, ev, (a, 0, 0, 0))
         ls_d = jax.lax.dynamic_update_slice(ls_d, ls, (a, 0))
+        Md, Ed, ls_d = _level_barrier((Md, Ed, ls_d))
 
     # Up pass.
     U = jnp.zeros((fs.n_up, K, 4, n_pat), dtype=dtype)
@@ -434,7 +435,7 @@ def forest_log_likelihoods_and_gradients(
             scale = jnp.max(u, axis=(1, 2))
             scale = jnp.where(scale > 0, scale, jnp.ones_like(scale))
             u = u / scale[:, None, None, :]
-        U = jax.lax.dynamic_update_slice(U, u, (a, 0, 0, 0))
+        U = _level_barrier(jax.lax.dynamic_update_slice(U, u, (a, 0, 0, 0)))
 
     # Per-tree log likelihoods.
     Mroot = Md[fs.tree_root]  # (T, K, 4, Pp)
@@ -455,6 +456,16 @@ def forest_log_likelihoods_and_gradients(
 
     grad = edge_grad[fs.tree_edge]  # (T, node_count - 1)
     return ll, grad
+
+
+def _level_barrier(x):
+    """Materialize a level's buffers before the next level gathers from
+    them. Without it XLA's GPU fusion merges the unrolled levels' gathers
+    with their producers into kernels that take minutes to compile: on an
+    H100, DS1.100's JC69 forest took ~150 s for one branch-length set and
+    over 5 min vmapped over 8 sets, against 10-18 s with the barriers
+    (same results)."""
+    return jax.lax.optimization_barrier(x)
 
 
 def _jc_coeffs(bl):
@@ -527,7 +538,7 @@ def forest_jc_log_likelihoods_and_gradients(
     """Matrix-free JC69 forest evaluation — the production bench path.
 
     Identical results to forest_log_likelihoods_and_gradients with the
-    JC69 eigensystem (tested); ~1.7x faster on TPU because every 4x4
+    JC69 eigensystem (tested); cheaper because every 4x4
     contraction collapses to a broadcast-FMA and the gradient numerator
     needs only state sums: the normalized JC69 rate matrix is
     Q = (4/3)(J/4 − I), so
@@ -578,6 +589,7 @@ def forest_jc_log_likelihoods_and_gradients(
             Ed, evolve(fs.down_bl[a0:b0], prod), (a0, 0, 0)
         )
         ls_d = jax.lax.dynamic_update_slice(ls_d, ls, (a0, 0))
+        Md, Ed, ls_d = _level_barrier((Md, Ed, ls_d))
 
     site = 0.25 * jnp.sum(Md[fs.tree_root], axis=1)  # (T, S)
     ll = jnp.sum(w[None, :] * (jnp.log(site) + ls_d[fs.tree_root]), axis=-1)
@@ -627,11 +639,11 @@ def forest_jc_log_likelihoods_and_gradients(
                 denom = jnp.sum(Ue * Ee, axis=1)  # (e, S)
                 Sue = jnp.sum(Ue, axis=1)
                 See = jnp.sum(Ee, axis=1)
-                grad_parts.append((4.0 / 3.0) * jnp.sum(
+                grad_parts.append(_level_barrier((4.0 / 3.0) * jnp.sum(
                     w[None, :] * (0.25 * See * Sue / denom - 1.0), axis=-1
-                ))
-            prev = u if gdt == dtype else u.astype(gdt)
-        edge_grad = jnp.concatenate(grad_parts)
+                )))
+            prev = _level_barrier(u if gdt == dtype else u.astype(gdt))
+        edge_grad = _level_barrier(jnp.concatenate(grad_parts))
         return ll, edge_grad[tree_edge_pos]
 
     U = jnp.zeros((fs.n_up, 4, S), dtype)
@@ -649,7 +661,7 @@ def forest_jc_log_likelihoods_and_gradients(
             scale = jnp.max(u, axis=1)
             scale = jnp.where(scale > 0, scale, jnp.ones_like(scale))
             u = u / scale[:, None, :]
-        U = jax.lax.dynamic_update_slice(U, u, (a0, 0, 0))
+        U = _level_barrier(jax.lax.dynamic_update_slice(U, u, (a0, 0, 0)))
 
     Ue = U[fs.edge_up]
     Ee = Ed[fs.edge_down]

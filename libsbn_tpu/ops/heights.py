@@ -26,9 +26,9 @@ def node_heights_from_ratios(
     h[v] = b_v + r_v (h[parent] - b_v) propagates one tree level per sweep
     and is exact (and idempotent) once every level has been reached, so
     internal-count sweeps always suffice — and each sweep is one dense
-    gather + FMA over all nodes, which reverse-differentiates as dense ops.
-    The per-node lax.scan VJP measured 39 ms/launch at fluA B=64 on the
-    TPU (0.6 ms per scan step!) vs ~2 ms for this form. Pass n_iters (>=
+    gather + FMA over all nodes, which reverse-differentiates as dense ops
+    instead of a per-node scan whose VJP is one serial step per node.
+    Pass n_iters (>=
     max internal depth, e.g. from BatchedSchedule heights) to shorten the
     loop when the caller knows the depth statically."""
     ratios = jnp.asarray(ratios)
@@ -51,12 +51,10 @@ def node_heights_from_ratios(
 
     h0 = b.at[n - 1].set(ratios[-1])
 
-    # Parent lookup as a one-hot matvec, NOT a gather: under vmap the
-    # per-row batched gather lowers to a pathological TPU path (measured
-    # 0.64 ms per (256, 137) sweep — 5.4x slower than the MXU matvec for
-    # the whole fwd+vjp), while the one-hot contraction is bit-exact
-    # (each row holds a single 1.0, and adding exact zeros changes
-    # nothing) and reverse-differentiates as the transposed matvec.
+    # Parent lookup as a one-hot matvec rather than a batched gather: the
+    # one-hot contraction is bit-exact (each row holds a single 1.0, and
+    # adding exact zeros changes nothing) and reverse-differentiates as
+    # the transposed matvec.
     P = jax.nn.one_hot(parent_full, n, dtype=dtype)
 
     if method == "squaring":
@@ -64,7 +62,7 @@ def node_heights_from_ratios(
         # c = (1 - r) * b; compose it with itself log2(n_iters) times
         # ((A, c) -> (A^2, A c + c)) — exact for any count >= max depth
         # (extra applications fix the converged point). Trades the
-        # sequential matvec chain for a handful of MXU matmuls.
+        # sequential matvec chain for a handful of matmuls.
         import math
 
         A = r_full[:, None] * P
@@ -140,8 +138,8 @@ def ratio_and_rate_gradients_from_branch_gradient(
     # root column beyond the depth, and the root rows of dS/dr vanish):
     #  * "sweeps": K sequential one-hot matvecs — latency-bound;
     #  * "squaring": log2(K) matrix squarings of (S_k, M_k) with
-    #    S_{k+1} = S_k + M_k S_k, M_{k+1} = M_k^2 — MXU matmuls, ~4x
-    #    fewer sequential steps (used by the deep hand-chain path).
+    #    S_{k+1} = S_k + M_k S_k, M_{k+1} = M_k^2 — matmuls, ~4x
+    #    fewer sequential steps.
     n_internal = n - leaf_count - 1
     r_full = jnp.zeros((n,), dtype)
     r_full = r_full.at[leaf_count:n - 1].set(

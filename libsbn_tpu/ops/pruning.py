@@ -1,4 +1,4 @@
-"""Felsenstein pruning on TPU: batched scans over dense schedules.
+"""Felsenstein pruning: batched scans over dense schedules.
 
 This module replaces BEAGLE (the reference's L0 compute backend,
 fat_beagle.cpp) with a JAX/XLA engine:
@@ -34,6 +34,7 @@ sampled topologies per jitted launch via vmap over the leading batch axis.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -47,12 +48,11 @@ def node_transition_matrices(evec, ivec, evals, branch_lengths, rates):
     branch_lengths: (N+1,) with 0 at root and ones slot; rates: (K,).
     Returns (N+1, K, 4, 4).
 
-    The scalar exponential runs in f64 regardless of the working dtype:
-    TPU's f32 exp is several ulp off, and that error amplifies through ~L
-    levels of partial products into ~1 LL unit on DS1 Weibull+4 (the
-    pybeagle/physher parity gates demand atol 0.5; see BASELINE.md
+    The scalar exponential runs in f64 regardless of the working dtype: a
+    few ulp of f32 exp error amplify through ~L levels of partial products
+    toward the pybeagle/physher parity gates (atol 0.5; see BASELINE.md
     precision policy). The (N+1,K,4) exp tensor is tiny next to the
-    pruning work, so the f64 emulation cost on TPU is noise."""
+    pruning work, so its f64 cost is noise."""
     dt = jnp.result_type(evec, branch_lengths)
     t = branch_lengths.astype(jnp.float64)[..., :, None] * rates.astype(
         jnp.float64
@@ -179,6 +179,13 @@ def _root_site_likelihoods(M, root_id, freqs, props):
 
 
 # -- public API -------------------------------------------------------------
+class Sched(NamedTuple):
+    """The schedule fields log_likelihood_and_branch_gradient reads."""
+
+    root_id: int
+    post_children: jnp.ndarray
+
+
 def _sched_tuple(sched):
     """The five index arrays of a (batched or single) schedule."""
     return (
@@ -274,9 +281,9 @@ def log_likelihood_and_branch_gradient(
         f"P must cover N+1 = root_id+2 slots (root + ones slot); got "
         f"{P.shape[-4]} for root_id {sched.root_id}"
     )
-    post_node, post_children, up_node, up_parent, up_sibs = _sched_tuple(sched)
+    post_children = jnp.asarray(sched.post_children)
     root_id = sched.root_id
-    M, logscale = _postorder_m(post_node, post_children, P, tips, rescale)
+    M, logscale = _postorder_m(None, post_children, P, tips, rescale)
     E = _evolved_of(P, M)
     site = _root_site_likelihoods(M, root_id, freqs, props)
     ll = jnp.sum(weights * (jnp.log(site) + logscale))

@@ -91,8 +91,8 @@ def transition_matrices(evec, ivec, evals, edge_lengths):
     every likelihood engine in the framework (replaces BEAGLE's
     beagleUpdateTransitionMatrices and the GP engine's per-op 4x4 exps)."""
     t = jnp.asarray(edge_lengths)
-    # f64 exp regardless of working dtype: TPU's f32 exp error amplifies
-    # through the pruning recursion past the parity gates (see
+    # f64 exp regardless of working dtype: a few ulp of f32 exp error
+    # amplify through the pruning recursion toward the parity gates (see
     # pruning.node_transition_matrices / BASELINE.md precision policy).
     expo = jnp.exp(
         t.astype(jnp.float64)[..., None] * evals.astype(jnp.float64)

@@ -1,21 +1,16 @@
-"""Multi-host (multi-process) execution: jax.distributed init, DCN-aware
-global meshes, and process-local batch assembly.
+"""Multi-host (multi-process) execution: jax.distributed init, global
+meshes, and process-local batch assembly.
 
 The reference is strictly single-process (SURVEY.md §2.9: a thread pool over
-BEAGLE instances, no MPI/NCCL). The TPU-native scale-out model is SPMD:
+BEAGLE instances, no MPI/NCCL). The scale-out model here is SPMD:
 
-  * every host runs the same program over its local chips;
-  * the particle/tree axis ("dp") shards across ALL chips in the job — the
+  * every host runs the same program over its local devices;
+  * the particle/tree axis ("dp") shards across ALL devices in the job — the
     per-host sampler contributes its local slice of the global batch
     (jax.make_array_from_process_local_data) and XLA allreduces the ELBO
-    gradients over ICI within a slice and DCN across slices;
+    gradients;
   * the pattern axis ("sp") shards within a host (per-pattern terms dot
     pattern weights commute with psum).
-
-For multi-slice jobs, `global_mesh(..., hybrid=True)` puts the
-slower-than-ICI DCN links on the OUTERMOST dp segment only
-(mesh_utils.create_hybrid_device_mesh), so the only cross-slice traffic is
-the once-per-step gradient allreduce.
 """
 
 from __future__ import annotations
@@ -36,10 +31,10 @@ def initialize(
 ) -> bool:
     """Initialize jax.distributed for a multi-host job.
 
-    Arguments default to the standard environment (TPU metadata on Cloud TPU;
-    LIBSBN_COORDINATOR / LIBSBN_NUM_PROCESSES / LIBSBN_PROCESS_ID for manual
-    CPU/GPU bring-up). Returns True if distributed mode was initialized,
-    False for single-process runs. Idempotent."""
+    Arguments default to LIBSBN_COORDINATOR / LIBSBN_NUM_PROCESSES /
+    LIBSBN_PROCESS_ID. With neither a coordinator nor a process count the
+    run is single-process and nothing is initialized. Returns True if
+    distributed mode was initialized. Idempotent."""
     if getattr(initialize, "_done", False):
         return jax.process_count() > 1
     coordinator_address = coordinator_address or os.environ.get(
@@ -50,14 +45,7 @@ def initialize(
     if process_id is None and "LIBSBN_PROCESS_ID" in os.environ:
         process_id = int(os.environ["LIBSBN_PROCESS_ID"])
     if coordinator_address is None and num_processes is None:
-        # On Cloud TPU pods jax.distributed.initialize() self-configures from
-        # the metadata server; elsewhere a bare call is a no-op requirement.
-        try:
-            jax.distributed.initialize()
-        except Exception:
-            return False
-        initialize._done = True
-        return jax.process_count() > 1
+        return False
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
@@ -68,23 +56,16 @@ def initialize(
     return jax.process_count() > 1
 
 
-def global_mesh(dp: Optional[int] = None, sp: int = 1, hybrid: bool = False) -> Mesh:
+def global_mesh(dp: Optional[int] = None, sp: int = 1) -> Mesh:
     """A (dp, sp) mesh over ALL devices in the job (every process must call
-    this with the same arguments). With hybrid=True on a multi-slice job,
-    the dp axis is laid out so that DCN hops sit only between slices."""
+    this with the same arguments)."""
     from jax.experimental import mesh_utils
 
     n = len(jax.devices())
     if dp is None:
         dp = n // sp
     assert dp * sp == n, f"dp*sp = {dp}*{sp} != {n} devices"
-    if hybrid:
-        n_slices = getattr(jax.devices()[0], "num_slices", None) or 1
-        devices = mesh_utils.create_hybrid_device_mesh(
-            (dp // n_slices, sp), (n_slices, 1)
-        )
-    else:
-        devices = mesh_utils.create_device_mesh((dp, sp))
+    devices = mesh_utils.create_device_mesh((dp, sp))
     return Mesh(devices, axis_names=("dp", "sp"))
 
 

@@ -1,7 +1,7 @@
 """Device meshes and sharding for multi-chip scaling.
 
 The reference's only parallelism is a thread pool fanning trees over BEAGLE
-instances (fat_beagle.hpp:119-149); the TPU-native replacement is SPMD over a
+instances (fat_beagle.hpp:119-149); the replacement here is SPMD over a
 jax.sharding Mesh:
 
   * "dp"  — data parallel over particles/trees (the FatBeagleParallelize
@@ -10,7 +10,8 @@ jax.sharding Mesh:
     terms dot pattern weights commute with psum, gp_engine.cpp:213-220);
 
 Gradients reduce with XLA-inserted collectives (psum over dp for parameter
-gradients, psum over sp inside each tree's likelihood) riding ICI.
+gradients, psum over sp inside each tree's likelihood). The cards of one
+host are joined all to all, so the mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations

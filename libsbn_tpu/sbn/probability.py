@@ -2,7 +2,7 @@
 
 Reference: /root/reference/src/sbn_probability.cpp (NeurIPS 2018 Algorithm 1).
 
-TPU-native formulation: indexer representations are dense int32 arrays
+Dense formulation: indexer representations are dense int32 arrays
 (T topologies, E rootings, R indices per rooting); sbn_parameters carries an
 extra slot at index G holding -inf, so out-of-support indices (sentinel G)
 contribute zero probability with no branching. The EM inner loop is ONE

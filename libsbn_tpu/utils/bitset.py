@@ -1,6 +1,6 @@
 """Bitset algebra for clades, subsplits, and PCSPs.
 
-TPU-native reimplementation of the subsplit combinatorics of the reference
+Reimplementation of the subsplit combinatorics of the reference
 (see /root/reference/src/bitset.hpp). This layer is *host-side compile-time*
 machinery: bitsets exist while building indexers and traversal schedules;
 at runtime everything is dense int32 index arrays on device.

@@ -1,21 +1,21 @@
 """ctypes wrapper for the native CPU pruning+gradient baseline.
 
 This is bench.py's honest BEAGLE-CPU stand-in (the reference's L0 backend,
-/root/reference/src/fat_beagle.cpp:50-70,119-175): an -O3 -march=native
-vectorized, OpenMP-threaded host implementation of the exact bench
-workload (JC69 + constant sites, log-likelihood + linear-time two-pass
-branch gradient). See native/cpu_baseline.cpp.
+src/fat_beagle.cpp:50-70,119-175): an -O3 -march=native vectorized,
+OpenMP-threaded host implementation of the exact bench workload (JC69 +
+constant sites, log-likelihood + linear-time two-pass branch gradient),
+built from native/cpu_baseline.cpp on the host that runs it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
+from ..io import native
+
 _LIB = None
 
 
@@ -23,14 +23,9 @@ def _load():
     global _LIB
     if _LIB is not None:
         return _LIB
-    so = os.path.abspath(os.path.join(_NATIVE_DIR, "libsbn_cpu_baseline.so"))
-    if not os.path.exists(so):
-        subprocess.run(
-            ["make", "-C", os.path.dirname(so), "cpu_baseline"],
-            check=True,
-            capture_output=True,
-        )
-    lib = ctypes.CDLL(so)
+    if not native.build_native("cpu_baseline"):
+        raise RuntimeError("building native/libsbn_cpu_baseline.so failed")
+    lib = ctypes.CDLL(os.path.join(native._NATIVE_DIR, "libsbn_cpu_baseline.so"))
     i32p = ctypes.POINTER(ctypes.c_int32)
     f64p = ctypes.POINTER(ctypes.c_double)
     lib.lsbn_cpu_baseline_eval.argtypes = [
@@ -45,8 +40,16 @@ def _load():
         ctypes.c_int32, ctypes.c_int32, f64p,
     ]
     lib.lsbn_cpu_baseline_eval_pk.restype = None
+    lib.lsbn_cpu_baseline_threads.argtypes = []
+    lib.lsbn_cpu_baseline_threads.restype = ctypes.c_int32
     _LIB = lib
     return lib
+
+
+def threads() -> int:
+    """Host threads the baseline's batch loops use (1 when it was built
+    without the OpenMP runtime)."""
+    return int(_load().lsbn_cpu_baseline_threads())
 
 
 def eval_batch(post_children, up_node, up_parent, up_sibs, bl, tips,

@@ -2,10 +2,10 @@
 
 The reference's observability is a perf scratchpad plus ad-hoc wall-clock
 prints (SURVEY.md §5.1: noodle.cpp, gp_instance.cpp:140-174 timing report,
-vip benchmark gradient_time). The TPU-native equivalents here:
+vip benchmark gradient_time). The equivalents here:
 
   * ``device_trace``: wraps ``jax.profiler.trace`` so a block's XLA execution
-    can be inspected in TensorBoard/XProf (kernel timeline, HBM traffic);
+    can be inspected in TensorBoard/XProf (kernel timeline, memory traffic);
   * ``annotate``: named TraceAnnotation spans that show up inside the
     device trace;
   * ``PhaseTimer``: accumulates host wall time per named phase with an

@@ -4,7 +4,7 @@ Terminology follows the reference: "particles" are the sampled (topology,
 branch lengths) pairs; `px_` prefixes arrays whose first axis ranges over
 particles.
 
-TPU-native data flow per gradient step:
+Data flow per gradient step:
   1. sample particle_count topologies from the SBN (host);
   2. lower them to one batched schedule; branch representations are dense
      int arrays;

@@ -7,7 +7,7 @@ normals; everything else — reparameterized branch sampling, batched pruning
 likelihood + linear-time branch gradients, eq:dLdPsi scalar gradients, VIMCO
 topology gradients, and the optax update — runs on device. Under a Mesh, the
 particle axis shards data-parallel ("dp") and XLA inserts the gradient psums
-(SURVEY.md §2.9 TPU-native equivalents).
+(SURVEY.md §2.9).
 
 Branch models: split-lognormal (one variable per split, the benchmark
 default) and PSP (three summed component variables per branch, ICLR 2019),
@@ -24,7 +24,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from ..ops import pruning
+from ..ops import pruning, pruning_jc, substitution
 from ..sbn import gradients as sbn_gradients
 from ..sbn import probability as sbn_probability
 
@@ -48,10 +48,9 @@ class VBPIStatics(NamedTuple):
     # lognormal parameters sum (ICLR 2019); the last q_params row is the
     # zeroed sentinel for absent components (branch_models.py PSPModel).
     psp: bool = False
-    # Run the pruning likelihood+gradient through the fused JC69 Pallas
-    # kernel (ops/pruning_pallas_jc.py). TPU single-mesh only; the scan
-    # engine remains the portable/sharded path.
-    use_pallas: bool = False
+    # False keeps the pruning pass on the scan engine (JitVBPI sets it when
+    # a mesh splits the particle batch); ops/pruning_jc.py chooses.
+    allow_kernel: bool = True
 
 
 def make_optimizer(scalar_lr=1e-3, sbn_lr=1e-3):
@@ -90,7 +89,6 @@ def vbpi_train_step(
     tips,  # (L, 4, patterns)
     weights,  # (patterns,)
     segment_ids,  # (G,)
-    evec, ivec, evals, freqs, props, Q,  # substitution model tensors
 ):
     """One full VBPI gradient step. Returns (new_state, metrics)."""
     q_params, sbn_params, opt_state = state
@@ -104,41 +102,13 @@ def vbpi_train_step(
     sigma = q_params[branch_rep, 1].sum(axis=1)
     theta = jnp.exp(mu + sigma * eps)  # (P, B)
 
-    # 2. Batched pruning: likelihoods + linear-time branch gradients.
+    # 2. Batched pruning: likelihoods + linear-time branch gradients. The
+    # VBPI model is JC69 + constant sites by construction (JitVBPI).
     bl_padded = jnp.pad(theta, ((0, 0), (0, 2)))  # root + ones slots
-    rates = jnp.ones((1,), theta.dtype)  # constant site model
-    Qs = Q[None]  # (1, 4, 4) differential matrix, category rate 1
-
-    if statics.use_pallas:
-        # The VBPI model is JC69 by construction (JitVBPI.__init__), so
-        # the matrix-free JC kernel applies (ops/pruning_pallas_jc.py).
-        from ..ops import pruning_pallas_jc
-
-        lls, bgrads = (
-            pruning_pallas_jc.log_likelihood_and_branch_gradient_pallas_jc69(
-                sched5[1], bl_padded, tips, weights,
-                root_id=statics.root_id,
-            )
-        )
-    else:
-        def one(sched5_one, bl):
-            Pm = pruning.node_transition_matrices(evec, ivec, evals, bl, rates)
-
-            class _S:
-                pass
-
-            s = _S()
-            s.root_id = statics.root_id
-            (s.post_node, s.post_children, s.up_node, s.up_parent, s.up_sibs) = (
-                sched5_one
-            )
-            return pruning.log_likelihood_and_branch_gradient(
-                s, Pm, Qs, tips, freqs, props, weights, statics.rescale
-            )
-
-        lls, bgrads = jax.vmap(one, in_axes=((0, 0, 0, 0, 0), 0))(
-            sched5, bl_padded
-        )
+    lls, bgrads = pruning_jc.log_likelihood_and_branch_gradient_jc69(
+        sched5[1], bl_padded, tips, weights, root_id=statics.root_id,
+        rescale=statics.rescale, allow_kernel=statics.allow_kernel,
+    )
 
     # 3. Scalar lognormal gradient, eq:dLdPsi: each branch's per-occurrence
     # contribution scatters onto all C of its component variables
@@ -201,12 +171,9 @@ def vbpi_train_step_packed(
     packed,  # (P, K) int32: the 8 schedule/representation arrays, flattened
     eps, beta, shapes,  # static tuple of per-array trailing shapes
     tips, weights, segment_ids,
-    evec, ivec, evals, freqs, props, Q,
 ):
-    """vbpi_train_step with the int32 inputs packed into ONE buffer.
-
-    Over a high-latency link (remote/tunneled chips) nine per-step
-    device_puts cost nine round trips; packing makes it two (ints + eps).
+    """vbpi_train_step with the int32 inputs packed into ONE buffer: two
+    host-to-device transfers per step (ints + eps) instead of nine.
     Unpacking is free inside XLA (static slices/reshapes)."""
     arrays = []
     offset = 0
@@ -222,14 +189,14 @@ def vbpi_train_step_packed(
     branch_rep, reps, touched = arrays[5], arrays[6], arrays[7]
     return vbpi_train_step(
         state, statics, optimizer, sched5, branch_rep, reps, touched, eps,
-        beta, tips, weights, segment_ids, evec, ivec, evals, freqs, props, Q,
+        beta, tips, weights, segment_ids,
     )
 
 
 @functools.partial(jax.jit, static_argnames=("statics", "shapes"))
 def vbpi_log_f_packed(
     state, statics, packed, eps, shapes,
-    tips, weights, segment_ids, evec, ivec, evals, freqs, props, Q,
+    tips, weights, segment_ids,
 ):
     """Per-particle log f = loglike + log prior - log q_sbn - log q_branch
     at beta = 1, with NO parameter update — the evaluation half of
@@ -256,32 +223,17 @@ def vbpi_log_f_packed(
     sigma = q_params[branch_rep, 1].sum(axis=1)
     theta = jnp.exp(mu + sigma * eps)
     bl_padded = jnp.pad(theta, ((0, 0), (0, 2)))
-    rates = jnp.ones((1,), theta.dtype)
+    freqs, evec, ivec, evals = substitution.jc69_eigen(theta.dtype)
+    ones = jnp.ones((1,), theta.dtype)  # one rate category, weight 1
 
-    if statics.use_pallas:
-        from ..ops import pruning_pallas_jc
-
-        lls = pruning_pallas_jc.log_likelihoods_pallas_jc69(
-            sched5[1], bl_padded, tips, weights,
-            leaf_count=tips.shape[0], root_id=statics.root_id,
+    def one(sched5_one, bl):
+        Pm = pruning.node_transition_matrices(evec, ivec, evals, bl, ones)
+        return pruning._log_likelihood(
+            statics.rescale, statics.root_id, sched5_one, Pm, tips, freqs,
+            ones, weights,
         )
-    else:
-        def one(sched5_one, bl):
-            Pm = pruning.node_transition_matrices(evec, ivec, evals, bl, rates)
 
-            class _S:
-                pass
-
-            s = _S()
-            s.root_id = statics.root_id
-            (s.post_node, s.post_children, s.up_node, s.up_parent, s.up_sibs) = (
-                sched5_one
-            )
-            return pruning.log_likelihood(
-                s, Pm, tips, freqs, props, weights, statics.rescale
-            )
-
-        lls = jax.vmap(one, in_axes=((0, 0, 0, 0, 0), 0))(sched5, bl_padded)
+    lls = jax.vmap(one, in_axes=((0, 0, 0, 0, 0), 0))(sched5, bl_padded)
 
     log_prior = B * jnp.log(PRIOR_RATE) - PRIOR_RATE * jnp.sum(theta, axis=1)
     normalized = sbn_probability.probability_normalize_in_log(
@@ -309,7 +261,6 @@ def vbpi_train_steps_packed(
     betas,  # (K,)
     shapes,
     tips, weights, segment_ids,
-    evec, ivec, evals, freqs, props, Q,
 ):
     """K training steps in ONE dispatch (lax.scan over steps). Topologies
     for all K steps were sampled from the SBN as of the dispatch — within
@@ -320,7 +271,7 @@ def vbpi_train_steps_packed(
         packed, eps, beta = xs
         new_state, metrics = vbpi_train_step_packed(
             state, statics, optimizer, packed, eps, beta, shapes,
-            tips, weights, segment_ids, evec, ivec, evals, freqs, props, Q,
+            tips, weights, segment_ids,
         )
         return new_state, metrics
 
@@ -337,15 +288,17 @@ class JitVBPI:
     every process; particle_count is the global batch, each process samples
     its particle_count / process_count local rows and the step assembles
     them into one dp-sharded global array
-    (jax.make_array_from_process_local_data). Gradients allreduce over
-    ICI/DCN via XLA's inserted psums."""
+    (jax.make_array_from_process_local_data). Gradients allreduce through
+    XLA's inserted psums.
+
+    The pruning pass runs the fused JC69 kernel where
+    pruning_jc.use_kernel(dtype) holds and no mesh shards the batch, and
+    the scan engine otherwise."""
 
     def __init__(self, inst, particle_count: int, mesh=None, use_vimco=True,
                  scalar_lr=1e-3, sbn_lr=1e-3, dtype=None, seed=0, rescale=True,
-                 branch_model: str = "split", use_pallas=None):
+                 branch_model: str = "split"):
         import numpy as np
-
-        from ..ops import substitution
 
         self.inst = inst
         self.particle_count = particle_count
@@ -364,12 +317,6 @@ class JitVBPI:
         segment_ids = inst.sbn_support.segment_ids()
         self.segment_ids = jnp.asarray(segment_ids)
         num_segments = int(segment_ids.max(initial=0)) + 1
-        freqs, evec, ivec, evals = substitution.jc69_eigen(dtype)
-        self.model_tensors = (
-            evec, ivec, evals, freqs,
-            jnp.ones((1,), dtype),  # props
-            substitution.jc69_q(dtype),
-        )
         sp = inst.engine
         self.tips = sp.tips.astype(dtype)
         self.weights = sp.weights.astype(dtype)
@@ -397,25 +344,7 @@ class JitVBPI:
             rescale=rescale,
             use_vimco=use_vimco,
             psp=(branch_model == "psp"),
-            # Fused JC69 Pallas kernel (TPU, single mesh, f32): measured
-            # round 3 on DS1 — ties the scan engine at P=10 (33.5 vs 33.5
-            # ms/step, both host-sampling-bound) and wins at P=50 (52.3 vs
-            # 58.1) and P=256 (139.9 vs 161.4), so it is the default on
-            # TPU when no mesh shards the batch (Pallas custom calls are
-            # per-device programs).
-            use_pallas=(
-                jax.default_backend() == "tpu"
-                and mesh is None
-                and dtype == jnp.float32
-            )
-            if use_pallas is None
-            else use_pallas,
-        )
-        # The JC Pallas kernel is f32-only; refusing beats silently
-        # downcasting an explicitly-f64 run.
-        assert not (self.statics.use_pallas and dtype != jnp.float32), (
-            "use_pallas=True requires dtype=jnp.float32 (the JC kernel "
-            "is f32-only); drop use_pallas or pass dtype=jnp.float32"
+            allow_kernel=mesh is None,
         )
 
     def mode_match(self, split_modes):
@@ -593,11 +522,11 @@ class JitVBPI:
     def step_many(self, n_steps: int, beta=1.0):
         """n_steps gradient steps in ONE device dispatch.
 
-        Over a high-latency link the per-step dispatch/sync dominates at
-        small particle counts; this queues K steps as a device-side
-        lax.scan. Topologies for the whole window are sampled from the SBN
-        as of dispatch (up to K-1 updates stale; branch sampling and all
-        parameter updates stay live). beta may be a scalar or a (K,)
+        At small particle counts the per-step dispatch and host sync can
+        dominate; this queues K steps as a device-side lax.scan. Topologies
+        for the whole window are sampled from the SBN as of dispatch (up
+        to K-1 updates stale; branch sampling and all parameter updates
+        stay live). beta may be a scalar or a (K,)
         annealing schedule. Returns metrics stacked over steps ((K,)
         arrays). Single-host only."""
         import numpy as np
@@ -643,12 +572,10 @@ class JitVBPI:
             sh = NamedSharding(self.mesh, Pspec(None, "dp"))
             packed_k = jax.device_put(packed_k, sh)
             eps_k = jax.device_put(eps_k, sh)
-        evec, ivec, evals, freqs, props, Q = self.model_tensors
         self.state, metrics = vbpi_train_steps_packed(
             self.state, self.statics, self.optimizer,
             jnp.asarray(packed_k), jnp.asarray(eps_k), jnp.asarray(betas),
             shapes, self.tips, self.weights, self.segment_ids,
-            evec, ivec, evals, freqs, props, Q,
         )
         try:
             self.state.sbn_params.copy_to_host_async()
@@ -661,14 +588,14 @@ class JitVBPI:
         in-flight device step (double buffering).
 
         step() is strictly alternating — sample, dispatch, (implicitly)
-        wait — so the ~2 ms host sampling cost sits on the critical path
-        (25% of an 8 ms DS1 step; under multi-chip dp it becomes the
-        Amdahl ceiling). Here batch t+1 is lowered on the host WHILE the
-        device runs step t, so its topologies come from the parameters of
-        step t-1: one dispatch of staleness, strictly less than the up-to-
-        K-1 staleness step_many already gates (tail-mean ELBO gap an order
-        inside the between-seed MC spread; docs/performance.md 'step_many
-        staleness'). The first call primes the pipeline synchronously, so
+        wait — so the host sampling cost sits on the critical path (under
+        multi-device dp it becomes the Amdahl ceiling). Here batch t+1 is
+        lowered on the host WHILE the device runs step t, so its topologies
+        come from the parameters of step t-1: one dispatch of staleness,
+        strictly less than the up-to-K-1 staleness step_many already gates
+        (tail-mean ELBO gap an order inside the between-seed MC spread;
+        ROADMAP.md, findings kept, "step_many staleness"). The first call
+        primes the pipeline synchronously, so
         call #1 is bit-identical to step(). The reference has no analog
         (single-process alternating loop, burrito.py:84-117). Single-host.
         """
@@ -682,12 +609,10 @@ class JitVBPI:
             sched5, branch_rep, reps, touched, eps
         )
         prev_params = self.state.sbn_params  # completed (or completing)
-        evec, ivec, evals, freqs, props, Q = self.model_tensors
         self.state, metrics = vbpi_train_step_packed(
             self.state, self.statics, self.optimizer,
             packed, eps_d, jnp.asarray(beta, self.dtype), shapes,
             self.tips, self.weights, self.segment_ids,
-            evec, ivec, evals, freqs, props, Q,
         )
         try:
             self.state.sbn_params.copy_to_host_async()
@@ -707,16 +632,14 @@ class JitVBPI:
         packed, eps, shapes = self._device_put(
             sched5, branch_rep, reps, touched, eps
         )
-        evec, ivec, evals, freqs, props, Q = self.model_tensors
         self.state, metrics = vbpi_train_step_packed(
             self.state, self.statics, self.optimizer,
             packed, eps, jnp.asarray(beta, self.dtype), shapes,
             self.tips, self.weights, self.segment_ids,
-            evec, ivec, evals, freqs, props, Q,
         )
         # Warm the next step's host-side parameter read: the sampler needs
-        # sbn_params on host, and a synchronous device->host fetch costs a
-        # full link round trip on remote/tunneled chips.
+        # sbn_params on host, so start the device->host copy now instead
+        # of blocking on it at the next sample.
         try:
             self.state.sbn_params.copy_to_host_async()
         except AttributeError:  # pragma: no cover - backend without async copy
@@ -734,12 +657,10 @@ class JitVBPI:
         packed, eps, shapes = self._device_put(
             sched5, branch_rep, reps, touched, eps
         )
-        evec, ivec, evals, freqs, props, Q = self.model_tensors
         return np.asarray(
             vbpi_log_f_packed(
                 self.state, self.statics, packed, eps, shapes,
                 self.tips, self.weights, self.segment_ids,
-                evec, ivec, evals, freqs, props, Q,
             )
         )
 

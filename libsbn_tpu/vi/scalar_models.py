@@ -131,7 +131,7 @@ class LogNormalModel(ScalarModel):
 
 class ADScalarModel(ScalarModel):
     """Scalar models whose reparameterization gradients come from JAX AD —
-    the TPU-native replacement for the reference's TFP GradientTape wrappers
+    the replacement for the reference's TFP GradientTape wrappers
     (scalar_model.py TFScalarModel). Subclasses define the sampler and log
     density; sample_and_gradients differentiates them.
 

@@ -17,7 +17,8 @@
 // last), the `ones` slot (index node_count) pads child lists and is
 // numerically inert.
 //
-// Build: make -C native cpu_baseline  (g++ -O3 -march=native -fopenmp)
+// Build: make -C native cpu_baseline  (g++ -O3 -march=native, with -fopenmp
+// where the compiler has the OpenMP runtime)
 
 #include <cmath>
 #include <cstdint>
@@ -338,6 +339,16 @@ void lsbn_cpu_baseline_eval_pk(const int32_t* post_children, const double* P,
       out_ll[t] = ll;
     }
   }
+}
+
+// Host threads the batch loops use: OpenMP's count, or 1 when the
+// library was built without the OpenMP runtime.
+int lsbn_cpu_baseline_threads() {
+#ifdef _OPENMP
+  return omp_get_max_threads();
+#else
+  return 1;
+#endif
 }
 
 }  // extern "C"

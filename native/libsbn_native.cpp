@@ -4,7 +4,7 @@
 // This replaces the reference's bison/flex parser + Node machinery
 // (/root/reference/src/driver.cpp, parser.yy, node.cpp) for the hot host
 // paths: parsing large MCMC tree files and lowering sampled topologies to
-// the dense index schedules the TPU kernels consume. Semantics mirror the
+// the dense index schedules the device kernels consume. Semantics mirror the
 // Python implementation in libsbn_tpu/io/newick.py and ops/schedule.py:
 //
 //   * taxa are numbered by order of appearance in the first tree, or by

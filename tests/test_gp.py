@@ -299,7 +299,7 @@ def test_priors_four_taxon():
 
 
 def test_f32_engine_tracks_f64():
-    """make_engine(dtype=float32) (the TPU mode) tracks the f64 marginal to
+    """make_engine(dtype=float32) (the throughput mode) tracks the f64 marginal to
     ~1e-2 absolute through a full branch-length fit, and keeps PLVs on
     device without breaking downstream consumers."""
     results = {}
@@ -323,7 +323,7 @@ def test_newton_ascent_f32_matches_f64_flua():
     branch optimization converges f32 and f64 to the SAME fluA marginal
     within 1e-3 — the quantified agreement the fixed-iteration golden
     section could not deliver (f32 drifted to −4519 vs f64 −4340; see
-    docs/performance.md). Reference analog: Brent / analytic-derivative
+    ROADMAP.md, findings kept). Reference analog: Brent / analytic-derivative
     optimization, gp_engine.cpp:244-266,326-361."""
     marginals = {}
     for dtype in (np.float64, np.float32):
@@ -432,7 +432,7 @@ def test_relative_tolerance_ascent():
     """rtol stops the ascent once per-sweep gains fall below
     tol + rtol*|marginal| — the escape hatch for near-flat objectives
     that hit the sweep cap under an absolute tolerance alone (see
-    docs/performance.md tidy-DAG caveat; extension over the reference's
+    ROADMAP.md, findings kept; extension over the reference's
     absolute rule, gp_instance.cpp:129-175). A generous rtol must stop
     in no more sweeps than rtol=0 and land within rtol of its marginal;
     rtol=0 keeps the existing behavior bit-for-bit."""
@@ -479,7 +479,7 @@ def test_flat_surface_ascent_converges_below_cap(tmp_path):
     tolerance — beyond the old 100-sweep cap but well bounded (the round-3
     'stall' was a cap artifact: period-2 Jacobi oscillation among
     near-zero-signal edges slows the tail, it does not diverge; 9 damping/
-    acceleration variants measured in docs/performance.md, none beats the
+    acceleration variants measured (ROADMAP.md, findings kept), none beats the
     plain damped ascent's converged marginal). Robustness bar:
     gp_engine.cpp:326-345 (Brent + reject-if-worse)."""
     rng = np.random.default_rng(0)

@@ -238,3 +238,82 @@ def test_native_psp_representations_match_python(lib, data_dir):
         top = Topology.of_parent_id_vector(list(map(int, pv)))
         rep_py = np.asarray(psp.representation_of(top), dtype=np.int32)
         np.testing.assert_array_equal(reps_native[t], rep_py)
+
+
+def _native_sources(tmp_path):
+    """A copy of native/ without any built library."""
+    import os
+    import shutil
+
+    src = os.path.dirname(native._SO_PATH)
+    for name in ("Makefile", "libsbn_native.cpp"):
+        shutil.copy(os.path.join(src, name), tmp_path / name)
+    return tmp_path
+
+
+def test_native_build_from_source(tmp_path):
+    """The library builds from the tracked sources, lands under its final
+    name only (no temporary file left), loads, and a second build with
+    nothing newer leaves it untouched."""
+    import ctypes
+
+    d = _native_sources(tmp_path)
+    assert native.build_native("all", str(d))
+    so = d / "libsbn_native.so"
+    assert so.exists()
+    assert not list(d.glob("*.tmp"))
+    assert hasattr(ctypes.CDLL(str(so)), "lsbn_parse_newick_file")
+    mtime = so.stat().st_mtime_ns
+    assert native.build_native("all", str(d))
+    assert so.stat().st_mtime_ns == mtime
+    assert not native.build_native("all", str(d / "missing"))
+
+
+def test_native_build_concurrent_is_atomic(tmp_path):
+    """Several processes building at once (test workers on a fresh
+    checkout) all succeed, and the library they leave loads: each compiles
+    under its own temporary name and renames it into place."""
+    import ctypes
+    import subprocess
+
+    d = _native_sources(tmp_path)
+    procs = [
+        subprocess.Popen(["make", "-C", str(d), "all"],
+                         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+        for _ in range(4)
+    ]
+    assert all(p.wait(timeout=300) == 0 for p in procs)
+    assert not list(d.glob("*.tmp"))
+    assert hasattr(ctypes.CDLL(str(d / "libsbn_native.so")),
+                   "lsbn_build_schedules")
+
+
+@pytest.mark.parametrize("openmp", [True, False])
+def test_cpu_baseline_builds_with_and_without_openmp(tmp_path, openmp):
+    """The CPU baseline builds where the compiler lacks the OpenMP runtime
+    (-fopenmp fails): it then runs one thread, and otherwise OpenMP's."""
+    import ctypes
+    import os
+    import shutil
+    import subprocess
+
+    src = os.path.dirname(native._SO_PATH)
+    for name in ("Makefile", "cpu_baseline.cpp"):
+        shutil.copy(os.path.join(src, name), tmp_path / name)
+    cxx = "g++"
+    if not openmp:
+        cxx = tmp_path / "cxx.sh"
+        cxx.write_text(
+            "#!/bin/sh\n"
+            'for a in "$@"; do [ "$a" = -fopenmp ] && exit 1; done\n'
+            'exec g++ "$@"\n'
+        )
+        cxx.chmod(0o755)
+    built = subprocess.run(
+        ["make", "-C", str(tmp_path), "cpu_baseline", f"CXX={cxx}"],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert built.returncode == 0, built.stderr
+    lib = ctypes.CDLL(str(tmp_path / "libsbn_cpu_baseline.so"))
+    threads = lib.lsbn_cpu_baseline_threads()
+    assert threads >= 1 if openmp else threads == 1

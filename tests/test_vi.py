@@ -314,8 +314,8 @@ def test_step_many_matches_step_trajectory(data_dir):
     tolerate that. Gate: on DS1 (deterministic CPU f64, fixed seeds), the
     tail-mean ELBO gap between K=16 windows and K=1 live stepping is an
     order of magnitude INSIDE the K=1 between-seed MC spread (measured:
-    gap 11.3 vs spread 125 at 160 steps; docs/performance.md 'step_many
-    staleness')."""
+    gap 11.3 vs spread 125 at 160 steps; ROADMAP.md, findings kept,
+    "step_many staleness")."""
     from libsbn_tpu import UnrootedInstance
     from libsbn_tpu.vi.jit_step import JitVBPI
 
@@ -390,7 +390,7 @@ def test_step_overlapped_pipeline():
     """step_overlapped: call #1 is bit-identical to step() (same seed),
     later calls run with one-step-stale topology sampling and keep
     training healthy (ELBO-like metric finite and improving on average).
-    VERDICT r3 item 4: hide the host sampling cost behind device compute."""
+    The aim: hide the host sampling cost behind device compute."""
     from libsbn_tpu import UnrootedInstance
     from libsbn_tpu.models.phylo_model import PhyloModelSpec
     from libsbn_tpu.vi.jit_step import JitVBPI

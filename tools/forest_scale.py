@@ -4,7 +4,8 @@ SBN-sampled support (the regime fixed-support workloads actually see).
 Trains SA on DS1.100_topologies, samples N topologies from the SBN
 (native bulk sampler), hash-conses them into a forest, and measures the
 split-keyed evaluation surfaces. Usage:
-  python tools/forest_scale.py [n_trees] [--cpu]
+  python tools/forest_scale.py [n_trees]
+(JAX_PLATFORMS=cpu runs it on the CPU.)
 """
 
 import os
@@ -19,9 +20,6 @@ import numpy as np  # noqa: E402
 def main():
     n_trees = int(sys.argv[1]) if len(sys.argv) > 1 else 1000
     import jax
-
-    if "--cpu" in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from libsbn_tpu import UnrootedInstance

@@ -1,9 +1,10 @@
-"""GP scale measurement: a >=200-taxa, >=4k-pattern generalized-pruning fit
-(VERDICT round-1 item 3c). Generates a random coalescent-style tree and a
+"""GP scale measurement: a >=200-taxa, >=4k-pattern generalized-pruning
+fit. Generates a random coalescent-style tree and a
 random alignment (random sequences barely compress, so patterns ~ sites),
 builds the subsplit DAG, and times the fused and streamed ascents.
 
-Usage: python tools/gp_scale.py [taxa] [sites] [--f32] [--tpu]
+Usage: python tools/gp_scale.py [taxa] [sites] [--f32]
+(JAX_PLATFORMS=cpu runs it on the CPU.)
 (default 200 taxa, 4096 sites, f64 on CPU).
 """
 
@@ -42,13 +43,11 @@ def main():
     taxa = int(sys.argv[1]) if len(sys.argv) > 1 else 200
     sites = int(sys.argv[2]) if len(sys.argv) > 2 else 4096
     dtype = np.float32 if "--f32" in sys.argv else np.float64
-    import jax
+    import tempfile
 
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
     from libsbn_tpu.gp.instance import GPInstance
 
-    tree_path, fasta_path = make_data(taxa, sites, "/tmp")
+    tree_path, fasta_path = make_data(taxa, sites, tempfile.gettempdir())
     t0 = time.time()
     inst = GPInstance("scale")
     inst.read_newick_file(tree_path)

@@ -16,8 +16,10 @@ from __future__ import annotations
 
 import ast
 import pathlib
+import os
 import py_compile
 import sys
+import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PY_DIRS = ["libsbn_tpu", "tests", "tools"]
@@ -96,7 +98,8 @@ def main():
         check_text(path, text, MAX_PY if is_lib else MAX_PY_TEST, errors)
         try:
             py_compile.compile(
-                str(path), doraise=True, cfile="/tmp/lint_cache.pyc"
+                str(path), doraise=True,
+                cfile=os.path.join(tempfile.gettempdir(), "lint_cache.pyc"),
             )
         except py_compile.PyCompileError as exc:
             errors.append(f"{rel}: does not compile: {exc.msg}")

@@ -1,23 +1,20 @@
-"""TPU-vs-native throughput at configurable scale (taxa x patterns).
-
-The north-star argument needs the multiple to GROW with problem size;
-this makes the measurement a one-liner (docs/performance.md round-4
-scale point: ~50x at 200 taxa vs ~32x at 27):
+"""Device-vs-native throughput at configurable scale (taxa x patterns):
 
     python tools/scale_compare.py [taxa] [patterns] [batch]
 
 Workload: LL + linear-time branch gradient on a random unrooted tree
-with one-hot random tips, f32 TPU JC kernel vs native/cpu_baseline.cpp.
-The native side runs f64: its unscaled f32 path underflows to -inf
-beyond ~100 taxa (the TPU kernel rescales per level and stays f32).
-Gradient parity TPU-f32 vs native-f64 is asserted at 1e-4 relative.
-Timing windows end in value fetches (see bench.py _force).
+with one-hot random tips, in f32 on the JC69 path ops/pruning_jc.py
+selects (the fused kernel on a GPU) vs native/cpu_baseline.cpp. The
+native side runs f64: its unscaled f32 path underflows to -inf beyond
+~100 taxa (the device path rescales per level and stays f32). Gradient
+parity device-f32 vs native-f64 is asserted at 1e-4 relative.
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import numpy as np  # noqa: E402
 
@@ -27,7 +24,7 @@ def main():
     import jax.numpy as jnp
 
     from libsbn_tpu.core.topology import Topology
-    from libsbn_tpu.ops import pruning_pallas_jc, schedule
+    from libsbn_tpu.ops import pruning_jc, schedule
     from libsbn_tpu.utils import cpu_baseline
 
     taxa = int(sys.argv[1]) if len(sys.argv) > 1 else 200
@@ -55,19 +52,18 @@ def main():
     w = np.ones(S, np.float32)
 
     fn = jax.jit(
-        lambda b: pruning_pallas_jc
-        .log_likelihood_and_branch_gradient_pallas_jc69(
+        lambda b: pruning_jc.log_likelihood_and_branch_gradient_jc69(
             pc, b, tips, w, root_id=sch.root_id
         )
     )
     b32 = jnp.asarray(bl, jnp.float32)
     out = fn(b32)
     grad_t = np.asarray(out[1])
-    t0 = time.time()
+    t0 = time.perf_counter()
     for _ in range(10):
         out = fn(b32)
-    _ = np.asarray(out[0])  # value fetch: the only honest barrier
-    tpu = B * 10 / (time.time() - t0)
+    jax.block_until_ready(out)
+    device = B * 10 / (time.perf_counter() - t0)
 
     run_native = lambda: cpu_baseline.eval_batch(  # noqa: E731
         pc, tile(np.asarray(sch.up_node)), tile(np.asarray(sch.up_parent)),
@@ -85,8 +81,9 @@ def main():
     )
     assert rel < 1e-4, f"gradient parity broke at scale: {rel}"
     print(
-        f"{taxa} taxa x {S} patterns (B={B}): TPU {tpu:,.0f} evals/s, "
-        f"native f64 {native:,.0f} evals/s -> {tpu / native:.1f}x "
+        f"{taxa} taxa x {S} patterns (B={B}): "
+        f"{jax.devices()[0].device_kind} {device:,.0f} evals/s, "
+        f"native f64 {native:,.0f} evals/s -> {device / native:.1f}x "
         f"(grad parity {rel:.1e})"
     )
 

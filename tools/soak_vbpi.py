@@ -1,7 +1,7 @@
 """End-to-end DS1 VBPI training soak on the attached backend.
 
-Reproduces the round-3 soak protocol (docs/performance.md "End-to-end DS1
-VBPI training"): 20k JitVBPI steps, 10 particles, VIMCO, split-lognormal,
+Soak protocol (ROADMAP.md, findings kept, "DS1 VBPI soak"): 20k JitVBPI
+steps, 10 particles, VIMCO, split-lognormal,
 beta annealed over 2k steps, step_many(20) dispatch; asserts the converged
 importance-weighted marginal against the recorded value.
 

@@ -1,4 +1,4 @@
-"""Back the tidy-DAG design deviation with data (VERDICT round-2 item 5).
+"""Back the tidy-DAG design deviation with data.
 
 The reference's TidySubsplitDAG (/root/reference/src/tidy_subsplit_dag.hpp:
 4-11, 68-100) tracks, per PLV, whether it is current, so its sequential
@@ -15,8 +15,10 @@ stale closures, times the per-edge optimizer's inner iterations) versus
 our full-repopulate cost (node_count per sweep, times the measured number
 of sweeps to convergence), plus the measured wall-clock of a fused sweep.
 
-Usage: python tools/tidy_measure.py [--scale TAXA SITES] [--tpu]
-Writes a markdown table to stdout (copied into docs/performance.md).
+Usage: python tools/tidy_measure.py [--scale TAXA SITES]
+(JAX_PLATFORMS=cpu runs it on the CPU.)
+Writes a markdown table to stdout (ROADMAP.md, findings kept, "Tidy-DAG
+deviation").
 """
 
 import os
@@ -114,10 +116,6 @@ def measure(name, fasta, newick_file, dtype, brent_iters=7):
 
 
 def main():
-    import jax
-
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
     dtype = np.float64
 
     rows = []
@@ -133,7 +131,9 @@ def main():
         taxa, sites = 200, 1024
     from gp_scale import make_data
 
-    tree_path, fasta_path = make_data(taxa, sites, "/tmp")
+    import tempfile
+
+    tree_path, fasta_path = make_data(taxa, sites, tempfile.gettempdir())
     rows.append(measure(f"random-{taxa}taxa", fasta_path, tree_path, dtype))
 
     # A denser multi-tree DAG: DS1's 10 subsampled topologies.
